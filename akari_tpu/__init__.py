@@ -1,12 +1,13 @@
-"""AkariRender-TPU: a TPU-native differentiable physically-based renderer.
+"""AkariRender in JAX: a differentiable physically-based renderer.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of AkariRender
 (reference: a C++17 CPU/CUDA wavefront path tracer). The compute path is
-pure-functional JAX compiled by XLA for TPU; hot kernels (BVH traversal,
-ray-triangle intersection) are Pallas TPU kernels; multi-chip scaling uses
-``jax.sharding`` meshes with XLA collectives.
+pure-functional JAX compiled by XLA for the GPU; the dense ray-triangle
+intersection for small scenes is a Pallas kernel (Triton route), BVH
+traversal is XLA; multi-device scaling uses ``jax.sharding`` meshes with
+XLA collectives.
 
-Layer map (TPU-first redesign of the reference's L0..L4 stack, SURVEY.md §1):
+Layer map (redesign of the reference's L0..L4 stack, SURVEY.md §1):
 
 - ``core``        -- math/RNG/sampling/film primitives (ref: src/akari/common/)
 - ``scene``       -- scene graph, loaders, compile-to-arrays (ref: core/nodes/)

@@ -1,20 +1,33 @@
 """Render CLI — the ``akari`` equivalent (ref: src/akari/cmd/akari.cpp:41-102).
 
 Usage: python -m akari_tpu.cli.render -i scene.akari [-o out.png] [--spp N]
-       [--intersector bvh|brute|pallas] [--ao] [-v]
+       [--intersector auto|bvh|brute|pallas] [--ao] [-v]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
+
+
+@functools.cache
+def _jitted(fn):
+    """One jitted program per render function, kept for the process (a
+    second ``main`` call with the same scene shapes reuses it). The scene
+    and camera are arguments, not constants baked into the program."""
+    import jax
+
+    return jax.jit(fn, static_argnames=("cfg", "seed"))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="akari-render")
     ap.add_argument("-i", "--input", required=True, help="scene .akari file")
-    ap.add_argument("-o", "--output", default=None, help="output image path")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output image path (.png, or .npy/.hdr for linear "
+                         "float radiance)")
     ap.add_argument("--spp", type=int, default=None, help="override spp")
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--intersector", default="auto",
@@ -43,7 +56,11 @@ def main(argv=None):
     if args.verbose:
         set_verbose(True)
 
-    from ..core.image import write_png
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    from ..core.image import write_image
     from ..integrators.ao import AOConfig, render_ao
     from ..integrators.path import PathConfig, render
     from ..scene import sdl
@@ -136,7 +153,7 @@ def main(argv=None):
                 img = np.asarray(img)
         else:
             with frame("render/path"):
-                img = render(scene, camera, cfg, seed=args.seed)
+                img = _jitted(render)(scene, camera, cfg=cfg, seed=args.seed)
                 img = np.asarray(img)
     dt = time.perf_counter() - t0
     rays = cfg.spp * camera.width * camera.height
@@ -144,7 +161,7 @@ def main(argv=None):
 
     out = args.output or scene_node.output
     with frame("write_image"):
-        write_png(out, img)
+        write_image(out, img)
     log.info(f"wrote {out}")
     if prof:
         prof.print_stats()  # ref: print_kernel_stats (cuda/launch.cpp:92-117)

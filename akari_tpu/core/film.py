@@ -1,7 +1,7 @@
 """Film: radiance + weight accumulation planes (ref: src/akari/core/film.h:33-116).
 
 The reference accumulates per-tile ``Pixel{radiance, weight}`` then merges
-tiles under a mutex. On TPU the whole frame's samples are produced as a
+tiles under a mutex. Here the whole frame's samples are produced as a
 ``[S, H, W, 3]`` batch (or per-shard slices), so accumulation is a plain
 sum-reduce — and the multi-chip merge is a ``psum`` (parallel/render.py)
 instead of a mutex.

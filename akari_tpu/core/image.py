@@ -1,5 +1,6 @@
 """Image read/write (ref: src/akari/core/image.{hpp,cpp} — stb-based I/O,
-gamma post-processing). Here: PIL for PNG/JPEG, a pure-numpy Radiance
+gamma post-processing). Here: a standard-library PNG writer, Pillow (an
+optional dependency) to read PNG/JPEG textures, a pure-numpy Radiance
 ``.hdr`` (RGBE) reader/writer for HDR assets (ref reads .hdr via
 stbi_loadf, image.cpp:86-128), numpy ``.npy`` as a lossless float format,
 plus the post-process chain.
@@ -7,20 +8,51 @@ plus the post-process chain.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 from .spectrum import linear_to_srgb, srgb_to_linear, to_uint8_srgb
 
 
-def write_png(path, img_linear):
-    """[H,W,3] linear float -> sRGB PNG."""
-    from PIL import Image
+def _png_chunk(kind, data):
+    body = kind + data
+    return struct.pack(">I", len(data)) + body + struct.pack(
+        ">I", zlib.crc32(body) & 0xFFFFFFFF
+    )
 
-    Image.fromarray(to_uint8_srgb(img_linear), mode="RGB").save(path)
+
+def write_png(path, img_linear):
+    """[H,W,3] linear float -> 8-bit sRGB PNG (zlib + struct only)."""
+    rgb = np.ascontiguousarray(to_uint8_srgb(img_linear)[..., :3])
+    h, w = rgb.shape[:2]
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1
+    ).tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def write_hdr_npy(path, img_linear):
     np.save(path, np.asarray(img_linear, dtype=np.float32))
+
+
+def write_image(path, img_linear):
+    """Write by extension: ``.npy`` / ``.hdr`` keep linear float radiance,
+    anything else is an 8-bit sRGB PNG."""
+    path = str(path)
+    if path.endswith(".npy"):
+        write_hdr_npy(path, img_linear)
+    elif path.endswith(".hdr"):
+        write_hdr(path, img_linear)
+    else:
+        write_png(path, img_linear)
 
 
 # --------------------------------------------------------------------------
@@ -118,7 +150,13 @@ def read_image(path, to_linear=True):
         return img[..., :3]
     if path.endswith(".hdr"):
         return _read_hdr(path)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path!r} needs Pillow (pip install pillow); "
+            ".hdr and .npy images need no extra package"
+        ) from e
 
     raw = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32) / 255.0
     return srgb_to_linear(raw).astype(np.float32) if to_linear else raw

@@ -6,7 +6,7 @@ A stateful sequential sampler is hostile to SPMD tracing; instead every
 sample is a pure function of ``(seed, pixel, sample_index, dimension)``
 via PCG output-function hashing (O'Neill 2014 / Jarzynski & Olano 2020 —
 public-domain constructions). The exact same integer arithmetic runs under
-``jax.numpy`` (TPU) and ``numpy`` (oracle), which is what makes the
+``jax.numpy`` (device) and ``numpy`` (oracle), which is what makes the
 "matched sampler seeds, allclose images" golden tests possible.
 
 Sample-stream layout (fixed, documented so the oracle consumes identically):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .vecmath import _xp
+from .vecmath import _xp, matmul
 
 
 def identity(xp=np):
@@ -89,18 +89,18 @@ def inverse(m):
 def apply_point(m, p):
     """Apply to ``[..., 3]`` points (translation included)."""
     xp = _xp(m, p)
-    r = p @ xp.asarray(m[:3, :3]).T
+    r = matmul(p, xp.asarray(m[:3, :3]).T, xp=xp)
     return r + xp.asarray(m[:3, 3])
 
 
 def apply_vector(m, v):
     """Apply to ``[..., 3]`` vectors (no translation)."""
     xp = _xp(m, v)
-    return v @ xp.asarray(m[:3, :3]).T
+    return matmul(v, xp.asarray(m[:3, :3]).T, xp=xp)
 
 
 def apply_normal(m, n):
     """Apply to normals: inverse-transpose of the linear part."""
     xp = _xp(m, n)
     it = xp.linalg.inv(xp.asarray(m[:3, :3], dtype=xp.float32)).T
-    return n @ it.T
+    return matmul(n, it.T, xp=xp)

@@ -1,6 +1,6 @@
 """Vector math over ``[..., 3]`` arrays.
 
-TPU-first redesign of the reference's fixed-size array math
+Redesign of the reference's fixed-size array math
 (ref: src/akari/common/array.h:115, src/akari/common/math.h:202 Frame).
 Instead of an ``Array<T,N>`` class with named lanes, everything is a plain
 ``[..., 3]`` array and every op is a pure function usable under ``jit``/
@@ -25,6 +25,29 @@ def _xp(*arrays):
 
             return jnp
     return np
+
+
+def _highest(xp):
+    """Keyword arguments that pin a jnp matrix product to full float32:
+    on the GPU, XLA may otherwise compute it in TF32 (about 1e-3
+    relative), which moves ray origins and hit points."""
+    if xp is np:
+        return {}
+    import jax
+
+    return {"precision": jax.lax.Precision.HIGHEST}
+
+
+def einsum(spec, *operands, xp=None):
+    """``xp.einsum`` at full float32 precision (see ``_highest``)."""
+    xp = xp or _xp(*operands)
+    return xp.einsum(spec, *operands, **_highest(xp))
+
+
+def matmul(a, b, xp=None):
+    """``a @ b`` at full float32 precision (see ``_highest``)."""
+    xp = xp or _xp(a, b)
+    return xp.matmul(a, b, **_highest(xp))
 
 
 def vec3(x, y, z, xp=None):

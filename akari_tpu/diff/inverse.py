@@ -80,8 +80,8 @@ def scene_params(scene, optimize_images=False, optimize_geometry=False):
             # different semantics from the documented world-space move.
             raise ValueError(
                 "optimize_geometry=True requires a flat (non-instanced) "
-                "scene; recompile with flattened instances "
-                "(intersector='pallas' under FLATTEN_MAX_TRIS)"
+                "scene; recompile with a dense intersector ('brute' or "
+                "'pallas'), which flattens instances to world space"
             )
         params["tri_delta"] = jnp.zeros_like(jnp.asarray(scene.tri_v0))
     return params

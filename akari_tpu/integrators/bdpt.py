@@ -3,7 +3,7 @@
 New capability vs the reference: AkariRender's gallery shows BDPT renders
 from an earlier incarnation but the reference code has no bidirectional
 integrator (SURVEY.md §4 — "BDPT/guiding are NOT in this code"); BASELINE
-config 5 asks for one. This is a from-scratch TPU formulation:
+config 5 asks for one. This is a from-scratch wavefront formulation:
 
 * An **eye subpath** and a **light subpath** are traced for every pixel
   sample with the same fixed-depth masked wavefront sweeps as the
@@ -19,7 +19,7 @@ config 5 asks for one. This is a from-scratch TPU formulation:
 
 * **Light tracing (t = 1)**: every light-subpath vertex is also connected
   to the camera and splatted to the film pixel it projects to (a
-  scatter-add — the TPU stand-in for a film atomic splat). Enabled for
+  scatter-add — the stand-in for a film atomic splat). Enabled for
   pinhole cameras (``BDPTConfig.light_tracing``); when disabled (or with a
   thin lens) the strategy set simply excludes t = 1 and the MIS weights
   account only for included strategies, so the estimator stays unbiased
@@ -34,7 +34,7 @@ import numpy as np
 
 from .. import sampling
 from ..core import rng
-from ..core.vecmath import _xp, cross, dot, normalize
+from ..core.vecmath import _xp, cross, dot, matmul, normalize
 from ..scene import geom
 from ..shading import bsdf as bsdf_mod
 from ..shading import light as light_mod
@@ -49,7 +49,7 @@ OFF_L_DIR = 3      # emission direction (2)
 OFF_L_BSDF = 5     # per-bounce bsdf u (2)
 
 # Cap on rays per fused connection-visibility launch (see trace_bdpt):
-# bounds the shadow wavefront's transient HBM while still fusing ~16
+# bounds the shadow wavefront's transient memory while still fusing ~16
 # connection strategies per launch at 256^2.
 BDPT_OCC_CHUNK_RAYS = 1 << 20
 
@@ -150,7 +150,7 @@ def _camera_connect(camera, p, xp):
     d2 = xp.maximum(dot(v, v), 1e-12)
     dist = xp.sqrt(d2)
     w_to_cam = v / dist[..., None]
-    d_cam = (p - cam_o) @ rot  # rows = R^T (p - cam_o): camera-space dir
+    d_cam = matmul(p - cam_o, rot, xp=xp)  # R^T (p - cam_o): camera space
     z = -d_cam[..., 2]
     safe_z = xp.maximum(z, 1e-8)
     sx, sy = _film_plane(camera)
@@ -583,7 +583,8 @@ def trace_bdpt(scene, camera, cfg, seed, sample_idx, pixel_idx,
     # batched occlusion launch at the end (the fused-launch idea from
     # path.py:370-381 applied across every (s,t) pair): eye_depth x
     # light_depth (+ light-tracing) launches collapse to one, which keeps
-    # the TPU fed with a single large wavefront instead of ~12 small ones.
+    # the device fed with a single large wavefront instead of ~12 small
+    # ones.
     # Entries: (o, d, t_max, payload) with payload ("conn"|"splat", ...).
     shadow_q = []
 
@@ -771,8 +772,8 @@ def trace_bdpt(scene, camera, cfg, seed, sample_idx, pixel_idx,
 
     # ---- batched occlusion launches for the queued connections ----
     # Queue entries are flushed in groups of at most BDPT_OCC_CHUNK_RAYS
-    # rays: large fused launches keep the TPU fed, the cap bounds the
-    # transient shadow-wavefront HBM at high resolution/depth (the full
+    # rays: large fused launches keep the device fed, the cap bounds the
+    # transient shadow-wavefront memory at high resolution/depth (the full
     # queue is ~eye_depth*light_depth*n rays — depth^2 x a plain launch).
     if shadow_q:
         group, groups, group_rays = [], [], 0

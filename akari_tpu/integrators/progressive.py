@@ -1,7 +1,7 @@
 """Progressive (chunked) rendering with progress reporting and
 checkpoint/resume.
 
-TPU-native analog of the reference's tiled CPU render loop with its
+Analog of the reference's tiled CPU render loop with its
 ProgressReporter (ref: src/akari/kernel/integrators/cpu/integrator.cpp:
 89-142) — but the bounded resource here is samples-in-flight, not film
 tiles: the whole frame's wavefront for a chunk of spp renders per pass

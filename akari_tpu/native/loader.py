@@ -1,4 +1,8 @@
-"""Build + load the native library (ctypes; no pybind11 in this image)."""
+"""Build + load the native BVH builder (ctypes; no pybind11 needed).
+
+The library is compiled from ``bvh_builder.cpp`` at first use into
+``build/`` beside it (git-ignored); nothing binary is committed.
+"""
 
 from __future__ import annotations
 
@@ -9,7 +13,7 @@ import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "bvh_builder.cpp")
-_LIB = os.path.join(_DIR, "libakr_bvh.so")
+_LIB = os.path.join(_DIR, "build", "libakr_bvh.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -17,11 +21,16 @@ _tried = False
 
 
 def _compile():
+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+    # build under a per-process name, then rename: concurrent first uses
+    # (test workers) never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-        "-o", _LIB, _SRC, "-lpthread",
+        "-o", tmp, _SRC, "-lpthread",
     ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    os.replace(tmp, _LIB)
 
 
 def get_bvh_lib():
@@ -54,7 +63,14 @@ def get_bvh_lib():
                 ctypes.POINTER(ctypes.c_int64),  # out_n_nodes
             ]
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError) as e:
+            from ..utils.logger import get_logger
+
+            detail = getattr(e, "stderr", None) or str(e)
+            get_logger().warning(
+                f"native BVH builder unavailable, using the Python "
+                f"builder: {detail.strip()[-500:]}"
+            )
             _lib = None
         return _lib
 

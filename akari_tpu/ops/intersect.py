@@ -7,10 +7,11 @@ vectorized over the whole ray batch and dispatched to one of three
 interchangeable backends (ref keeps Embree vs custom-BVH behind the same
 interface; here the backends are an A/B oracle for each other):
 
-- ``brute``  : all-rays x all-triangles, tiled. O(N*T) but pure MXU/VPU
-               friendly dense compute; the correctness oracle.
+- ``brute``  : all-rays x all-triangles, tiled, in plain XLA. O(N*T)
+               dense compute with no divergence; the correctness oracle.
 - ``bvh``    : stackless threaded-BVH while-loop in plain XLA.
-- ``pallas`` : Pallas TPU kernel (ops/pallas_intersect.py).
+- ``pallas`` : the dense all-pairs Pallas kernel for the GPU
+               (ops/pallas_intersect.py).
 
 Differentiation: visibility is discontinuous, so the hit record (t, prim,
 uv) is detached (zero VJP) — gradients flow through *shading* at the hit
@@ -68,14 +69,16 @@ def moller_trumbore(o, d, v0, e1, e2, t_min, t_max):
     return hit, t, u, v
 
 
-def _brute_closest(scene, o, d, t_min, t_max, tri_chunk=2048):
+def _brute_closest(scene, o, d, t_min, t_max, tri_chunk=256):
     """All-pairs intersection, tiled over triangles via lax.scan.
 
     Dense [N, chunk] compute with no divergence — slow asymptotically but a
-    bit-exact oracle and surprisingly fast for small scenes on the VPU.
+    bit-exact oracle. The chunk shrinks to the scene (a 36-triangle scene
+    is one 36-wide chunk, with no padded triangles).
     """
     n = o.shape[0]
     t_count = scene.tri_v0.shape[0]
+    tri_chunk = max(1, min(tri_chunk, t_count))
     pad = (-t_count) % tri_chunk
     v0 = jnp.pad(scene.tri_v0, ((0, pad), (0, 0)))
     e1 = jnp.pad(scene.tri_e1, ((0, pad), (0, 0)))
@@ -120,14 +123,7 @@ def _brute_closest(scene, o, d, t_min, t_max, tri_chunk=2048):
 
 def _intersect_impl(scene, o, d, t_min, t_max, any_hit=False):
     if scene.instances is not None:
-        # Two-level instanced scenes: per-prototype Pallas BLAS when the
-        # compile built its tables, else the XLA TLAS/BLAS while-loop.
-        if scene.intersector == "pallas" and scene.inst_pallas_f32 is not None:
-            from . import pallas_intersect
-
-            return pallas_intersect.intersect_pallas(
-                scene, o, d, t_min, t_max, any_hit
-            )
+        # Two-level instanced scenes: the XLA TLAS/BLAS while-loop.
         from ..bvh import traverse
 
         return traverse.intersect_instanced(scene, o, d, t_min, t_max, any_hit)
@@ -193,8 +189,8 @@ def occlude(scene, o, d, t_min, t_max):
 # ---------------------------------------------------------------------------
 # Component-SoA entry points (the hot wavefront path, core/v3.py layout):
 # V3 origins/directions in, [N] component results out. The Pallas backend
-# is natively SoA ([8, N] ray pack); the bvh/brute backends adapt through
-# the AoS interface (they are oracles/fallbacks, not the TPU fast path).
+# is natively SoA (eight [N] ray components); the bvh/brute backends adapt
+# through the AoS interface.
 
 
 class HitSoA(NamedTuple):
@@ -205,14 +201,12 @@ class HitSoA(NamedTuple):
     valid: jax.Array  # [N] bool
 
 
-def _soa_impl(scene, o3, d3, t_min, t_max, any_hit, hint="primary"):
-    if scene.intersector == "pallas" and (
-        scene.instances is None or scene.inst_pallas_f32 is not None
-    ):
+def _soa_impl(scene, o3, d3, t_min, t_max, any_hit):
+    if scene.intersector == "pallas" and scene.instances is None:
         from . import pallas_intersect
 
         return pallas_intersect.intersect_pallas_soa(
-            scene, o3, d3, t_min, t_max, any_hit, hint=hint
+            scene, o3, d3, t_min, t_max, any_hit
         )
     o = jnp.stack(jnp.broadcast_arrays(o3.x, o3.y, o3.z), axis=-1)
     d = jnp.stack(jnp.broadcast_arrays(d3.x, d3.y, d3.z), axis=-1)
@@ -222,12 +216,8 @@ def _soa_impl(scene, o3, d3, t_min, t_max, any_hit, hint="primary"):
     return res.t, res.prim, res.uv[..., 0], res.uv[..., 1], res.valid
 
 
-def intersect_soa(scene, o3, d3, t_min=None, t_max=None, hint="primary"):
-    """Closest-hit query on V3 rays -> HitSoA. Gradients detached.
-
-    ``hint`` ("primary" | "secondary") tells the Pallas backend which
-    coherence-sort key fits this ray population (see
-    pallas_intersect._sort_keys_soa); it never affects results."""
+def intersect_soa(scene, o3, d3, t_min=None, t_max=None):
+    """Closest-hit query on V3 rays -> HitSoA. Gradients detached."""
     n = o3.x.shape[0]
     t_min = (
         jnp.zeros((n,), jnp.float32) if t_min is None
@@ -242,11 +232,11 @@ def intersect_soa(scene, o3, d3, t_min=None, t_max=None, hint="primary"):
     o3 = jax.tree_util.tree_map(sg, o3)
     d3 = jax.tree_util.tree_map(sg, d3)
     return HitSoA(
-        *_soa_impl(scene, o3, d3, sg(t_min), sg(t_max), False, hint=hint)
+        *_soa_impl(scene, o3, d3, sg(t_min), sg(t_max), False)
     )
 
 
-def occlude_soa(scene, o3, d3, t_min, t_max, hint="secondary"):
+def occlude_soa(scene, o3, d3, t_min, t_max):
     """Any-hit query on V3 rays -> [N] bool occluded."""
     n = o3.x.shape[0]
     t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
@@ -255,4 +245,4 @@ def occlude_soa(scene, o3, d3, t_min, t_max, hint="secondary"):
     scene = jax.tree_util.tree_map(sg, scene)
     o3 = jax.tree_util.tree_map(sg, o3)
     d3 = jax.tree_util.tree_map(sg, d3)
-    return _soa_impl(scene, o3, d3, t_min, t_max, True, hint=hint)
+    return _soa_impl(scene, o3, d3, t_min, t_max, True)

@@ -1,4 +1,4 @@
-"""NumPy reference renderer — the golden oracle for the JAX/TPU path.
+"""NumPy reference renderer — the golden oracle for the JAX device path.
 
 Plays the role of the reference's CPU megakernel renderer in the golden
 tests (BASELINE: "images and pixel gradients allclose to the reference CPU
@@ -6,7 +6,7 @@ renderer on matched sampler seeds"): same algorithm, same deterministic
 counter RNG stream (core/rng.py), brute-force intersection with float64
 accumulation options — executed eagerly in NumPy with no XLA involved.
 
-The TPU renderer must match this bit-for-bit in ray/sample decisions and
+The JAX renderer must match this bit-for-bit in ray/sample decisions and
 to float32 tolerance in radiance.
 """
 

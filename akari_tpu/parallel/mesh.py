@@ -3,7 +3,8 @@
 New capability vs the reference (single-process, no multi-GPU — its IPC
 channel is an empty stub, ref: src/akari/core/ipc.cpp:23-82). SURVEY.md
 §2.7/§5.8: the primary parallel axis is the ray/pixel batch ("rays" mesh
-axis); scene arrays are replicated; film/loss reductions are psum over ICI.
+axis); scene arrays are replicated; film/loss reductions are psum over
+the device interconnect.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ def make_ray_mesh(devices=None, n_devices=None):
 def initialize_distributed(coordinator=None, num_processes=None, process_id=None):
     """Multi-host entry: jax.distributed.initialize passthrough.
 
-    On a pod slice this connects processes so that jax.devices() spans all
-    hosts and psum rides ICI/DCN (SURVEY.md §5.8). No-op for single host.
+    On several hosts this connects processes so that jax.devices() spans
+    all hosts and psum crosses them (SURVEY.md §5.8). No-op for a single
+    host.
     """
     if num_processes and num_processes > 1:
         jax.distributed.initialize(

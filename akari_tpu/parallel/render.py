@@ -1,14 +1,15 @@
 """Ray-sharded rendering and loss over a device mesh (shard_map + psum).
 
-TPU-native replacement for the reference's tile thread-pool parallelism
+Replacement for the reference's tile thread-pool parallelism
 (ref: src/akari/core/parallel.cpp:45-130 + mutex film merge,
 integrators/cpu/integrator.cpp:115-141): pixels are sharded over the
 ``rays`` mesh axis, each device traces its slice with the identical
 wavefront code, and the film/loss merge is an XLA collective instead of a
 mutex. The scene pytree is replicated (in_spec P()); gradients of
 replicated scene parameters are summed across shards by shard_map's
-transpose of the replication (an all-reduce over ICI), which is the
-"gradient all-reduce overlapped with backward" of BASELINE's north star.
+transpose of the replication (an all-reduce over the device interconnect),
+which is the "gradient all-reduce overlapped with backward" of BASELINE's
+north star.
 """
 
 from __future__ import annotations
@@ -17,12 +18,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..integrators.path import trace_accumulate
 
@@ -133,7 +130,7 @@ def render_sharded(scene, camera, cfg, mesh, seed=0, sample_offset=0):
 def loss_and_image_sharded(scene, camera, cfg, mesh, target, seed=0):
     """Sharded MSE loss against a target image (+ the rendered image).
 
-    The loss psum runs over ICI; differentiating this function yields
+    The loss psum runs over the device interconnect; differentiating this function yields
     scene-parameter gradients that are all-reduced across shards by the
     shard_map transpose. Target: [H, W, 3].
     """

@@ -1,6 +1,6 @@
 """Device scene representation: flat SoA arrays in a pytree.
 
-TPU-first redesign of the reference's pointer-based compiled scene
+Redesign of the reference's pointer-based compiled scene
 (``Scene<C>`` aggregate of BufferViews + Material*/Texture* pointers,
 ref: src/akari/kernel/scene.h:50-91 and nodes/scene.cpp:43-95 compile).
 Every pointer becomes an integer id into a flat table; every AoS buffer
@@ -62,7 +62,7 @@ class TextureTable:
 
     ``has_images`` is static: False lets shading skip the bilinear image
     path entirely at trace time (constant-only scenes resolve textures to
-    a flat [X,3] value table — the hot path on TPU).
+    a flat [X,3] value table).
     """
 
     kind: jax.Array      # [X] int32
@@ -137,7 +137,7 @@ class BVHArrays:
 class InstanceTable:
     """Two-level (TLAS/BLAS) instancing tables.
 
-    TPU-native extension of the reference's two-level BVH
+    Extension of the reference's two-level BVH
     (ref: kernel/bvh-accelerator.h:551-683 — per-mesh MeshBVH + top-level
     BVH over BVHHandles; the reference shares no geometry between
     instances and has no transforms, so this is a strict superset).
@@ -166,9 +166,7 @@ class InstanceTable:
     n_instances: int = 0
 
 
-@pytree_dataclass(
-    meta=("n_tris", "n_materials", "intersector", "tree_leaf_span")
-)
+@pytree_dataclass(meta=("n_tris", "n_materials", "intersector"))
 class SceneArrays:
     """The compiled scene. Triangle storage is in BVH-reordered order.
 
@@ -186,27 +184,6 @@ class SceneArrays:
     textures: TextureTable
     lights: LightTable
     bvh: BVHArrays
-    # [Kpad, 8] AABBs over 128-triangle BVH-ordered runs and [S, 8] AABBs
-    # over 32-cluster runs — the Pallas ray-stream hierarchy
-    # (ops/pallas_cluster.py).
-    tri_clusters: jax.Array = None
-    tri_superclusters: jax.Array = None
-    # [Nn, 16] packed BVH2 node table over LEAF_SPAN-cluster blocks — the
-    # ordered log-depth Pallas walk (ops/pallas_tree.py). None = use the
-    # linear supercluster kernel. tree_leaf_span is static (kernel unroll).
-    # tri_blocks is the matching [16, Tpad] transposed triangle store the
-    # tree kernel DMAs cluster runs from (pack_tris_t layout, precomputed
-    # so render steps don't re-pack tens of MB per launch).
-    tri_tree: jax.Array = None
-    tri_blocks: jax.Array = None
-    # Per-prototype Pallas BLAS tables (instanced scenes beyond the
-    # flatten budget; ops/pallas_cluster.run_instanced): per-prototype
-    # padded object-space triangle blocks, concatenated cluster/super
-    # AABBs (stored in tri_clusters/tri_superclusters above), and the
-    # per-instance scalar tables (world AABB + w2o | index ranges).
-    inst_tris16: jax.Array = None       # [16, sum Kp*128] f32 (tris on lanes)
-    inst_pallas_f32: jax.Array = None   # [I, 20] f32
-    inst_pallas_i32: jax.Array = None   # [I, 8] int32
     # Environment (dome) light — beyond the reference's surface (it has
     # no infinite lights): equirectangular radiance map + a flattened
     # luminance*sin(theta) CDF for importance sampling (one searchsorted
@@ -217,8 +194,7 @@ class SceneArrays:
     env_pmf: jax.Array = None       # [He*We] f32 texel pmf
     env_p_select: jax.Array = None  # [] f32 P(pick env | NEE)
     # [T, 32] fat per-triangle shading-attribute table (flat scenes): one
-    # aligned gather (one-hot MXU matmul for small T, ops/gather.py) replaces
-    # ~10 narrow gathers per bounce. Columns: v0(0:3) e1(3:6) e2(6:9)
+    # row gather (ops/gather.py) replaces ~10 narrow gathers per bounce. Columns: v0(0:3) e1(3:6) e2(6:9)
     # normals(9:18) uvs(18:24) mat_id(24) light_sel_pdf(25) pad(26:32).
     # Derived from the same storage as tri_v0/normals/uvs at compile.
     prim_table: jax.Array = None
@@ -232,7 +208,6 @@ class SceneArrays:
     n_tris: int = 0
     n_materials: int = 0
     intersector: str = "bvh"  # "brute" | "bvh" | "pallas"
-    tree_leaf_span: int = 1   # clusters per tri_tree leaf (static)
 
 
 @pytree_dataclass(meta=("width", "height", "lens_radius", "focal_distance"))

@@ -18,7 +18,7 @@ Backend-generic (jnp / np) like the integrators.
 
 from __future__ import annotations
 
-from ..core.vecmath import _xp
+from ..core.vecmath import _xp, einsum
 
 
 def decode_prim(scene, prim, xp=None):
@@ -39,11 +39,11 @@ def decode_prim(scene, prim, xp=None):
 
 def _apply_affine(m, p, xp):
     """[N,3,4] affine rows @ [N,3] points."""
-    return xp.einsum("nij,nj->ni", m[:, :, :3], p) + m[:, :, 3]
+    return einsum("nij,nj->ni", m[:, :, :3], p, xp=xp) + m[:, :, 3]
 
 
 def _apply_linear(m, v, xp):
-    return xp.einsum("nij,nj->ni", m[:, :, :3], v)
+    return einsum("nij,nj->ni", m[:, :, :3], v, xp=xp)
 
 
 def tri_world(scene, prim, xp=None):
@@ -83,7 +83,7 @@ def normals_world(scene, prim, xp=None):
     ns_c = xp.take(scene.normals, sid, axis=0)  # [N,3,3]
     if inst is not None:
         nrm = xp.take(scene.instances.nrm, inst, axis=0)  # [N,3,3]
-        ns_c = xp.einsum("nij,ncj->nci", nrm, ns_c)
+        ns_c = einsum("nij,ncj->nci", nrm, ns_c, xp=xp)
     return ns_c
 
 

@@ -179,7 +179,7 @@ def _instance(fields, base_dir="."):
 @register_node("Path")
 def _path(fields, base_dir="."):
     """ref: nodes/integrator.cpp:42-57 (spp/max_depth/tile_size/ray_clamp,
-    wavefront flag). tile_size is accepted for compatibility; the TPU
+    wavefront flag). tile_size is accepted for compatibility; the
     wavefront shards by rays, not film tiles."""
     return PathConfig(
         spp=int(fields.get("spp", 16)),

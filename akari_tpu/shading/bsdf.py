@@ -5,7 +5,7 @@ Capability parity with ref: src/akari/kernel/material.h:57-191
 ``BSDF`` wrapper doing frame transforms and choice_pdf scaling).
 The reference's ``BSDFClosure`` Variant dispatch becomes masked
 evaluation of both closures + a per-lane select — there are only two
-closure kinds and both are pure VPU math, so evaluating both costs less
+closure kinds and both are pure arithmetic, so evaluating both costs less
 than any divergent-control alternative on a vector machine (SURVEY.md §7).
 
 ``params`` is an SoA dict per-ray: kind [N] (CLOSURE_*), color [N,3],

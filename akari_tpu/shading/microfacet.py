@@ -3,7 +3,7 @@
 Capability parity with ref: src/akari/kernel/microfacet.h:28-160
 (unified MicrofacetModel with D, G1, sample_wh, pdf). Branchless over
 lanes; ``dist`` selects the model per-lane via where (all three are cheap
-VPU math). Backend-generic (jnp / np).
+arithmetic). Backend-generic (jnp / np).
 """
 
 from __future__ import annotations

@@ -3,9 +3,8 @@
 Same math as shading/{bsdf,material,light,microfacet}.py — Lambert +
 GGX/Beckmann/Phong microfacet + specular mirror closures, the Mix-tree
 walk, power-CDF NEE — but every per-ray quantity is an [N] array and
-every 3-vector/RGB a V3 of [N] components. See core/v3.py for why this
-layout is the difference between ~0.4 ms/op padded traffic and dense VPU
-work on TPU. The AoS modules remain the API for the BDPT/AO integrators;
+every 3-vector/RGB a V3 of [N] components (see core/v3.py). The AoS
+modules remain the API for the BDPT/AO integrators;
 this module serves integrators/path.py's trace loop.
 
 Ref parity anchors: BSDF closures kernel/material.h:57-191, microfacet

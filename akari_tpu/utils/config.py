@@ -1,6 +1,6 @@
-"""Dtype policy — the TPU analog of the reference's build-time variant
+"""Dtype policy — the analog of the reference's build-time variant
 system (ref: resources/akari.conf + tools/configure.cpp generating
-Config<Float, Spectrum> instantiations): on TPU a "variant" is just the
+Config<Float, Spectrum> instantiations): here a "variant" is just the
 dtype the wavefront state carries — JAX retraces automatically, so variants
 are runtime values. Consumed by integrators.path.PathConfig (``dtypes``)
 and selectable from the render CLI (``--spectrum-dtype``).
@@ -19,9 +19,9 @@ class DtypePolicy:
     """Numeric policy for the render pipeline.
 
     spectrum: dtype radiance/throughput (L, beta) are carried in across the
-    bounce scan — bf16 halves the wavefront state's HBM footprint at some
-    quantization-noise cost (the experiment the reference's float/double
-    variants gesture at; see BENCH notes for the measured A/B).
+    bounce scan — bf16 halves the wavefront state's memory footprint at
+    some quantization-noise cost (the experiment the reference's
+    float/double variants gesture at; `bench.py --full` times the A/B).
     geometry: dtype for vertices / traversal (keep f32: Moeller-Trumbore
     dets cancel catastrophically in bf16).
     accum: film accumulation (keep f32: many-sample sums need the mantissa).

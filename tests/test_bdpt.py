@@ -136,7 +136,7 @@ def _glass_cornell():
 
 
 def test_bdpt_glass_matches_path_tracer():
-    """Delta-aware MIS (VERDICT r4 missing #2b): BDPT on a glass-bearing
+    """Delta-aware MIS: BDPT on a glass-bearing
     Cornell must agree with the unidirectional tracer — the r4
     DELTA_PDF=1e8 stand-in skewed the Veach recurrence at glass/mirror
     vertices; the r5 delta flags + remap0 make their densities cancel."""
@@ -158,7 +158,7 @@ def test_bdpt_glass_matches_path_tracer():
 
 
 def test_bdpt_env_matches_path_tracer():
-    """Environment lights in BDPT (VERDICT r4 missing #2a): an env-lit
+    """Environment lights in BDPT: an env-lit
     scene must no longer silently drop all environment illumination."""
     import dataclasses
 

@@ -172,7 +172,7 @@ def _mirror_shadow_scene(w=20, h=20):
 
 @pytest.mark.slow
 def test_indirect_boundary_gradient_matches_finite_difference():
-    """VERDICT r4 missing #3: visibility boundary gradients for an
+    """Visibility boundary gradients for an
     occluder that affects ONLY indirect light (a mirror-bounced shadow).
     boundary_term(max_bounce=1) walks the specular prefix and edge-
     samples the NEE boundary at the reflected vertex.

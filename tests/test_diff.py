@@ -127,7 +127,7 @@ def test_inverse_rendering_recovers_albedo():
 
 @pytest.mark.slow
 def test_geometry_gradient_finite_difference():
-    """Vertex-position gradients (VERDICT r2 item 4; the reference's
+    """Vertex-position gradients (the reference's
     autodiff.h is an empty stub): translate the light quad vertically and
     compare AD through the interior (reparameterized-barycentric,
     detached-hit) term — exposed as ``tri_delta`` by diff/inverse.py —
@@ -188,7 +188,7 @@ def test_geometry_gradient_finite_difference():
 
 
 def test_gradients_match_oracle_finite_difference(setup):
-    """BASELINE's literal claim: pixel-loss gradients from the TPU-path AD
+    """BASELINE's literal claim: pixel-loss gradients from the device-path AD
     match finite differences of the *NumPy oracle renderer* on matched
     sampler seeds (the oracle never touches JAX's AD or XLA)."""
     import dataclasses

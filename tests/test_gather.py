@@ -1,4 +1,4 @@
-"""ops/gather.py: one-hot MXU gathers must match jnp.take bit-exactly."""
+"""ops/gather.py: one-hot gathers must match jnp.take bit-exactly."""
 
 import jax
 import jax.numpy as jnp

@@ -160,3 +160,57 @@ def test_hdr_emissive_quad_selection_weight(tmp_path):
     np.testing.assert_allclose(pdf[:2] / pdf[2:], 4.0, rtol=1e-2)
     img = np.asarray(render(scene, cam, PathConfig(spp=2, max_depth=2), seed=0))
     assert np.isfinite(img).all() and img.mean() > 0.05
+
+
+def _read_png_rgb(path):
+    """Minimal decoder for write_png's output (8-bit RGB, filter 0 rows)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            assert (depth, color) == (8, 2)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert np.all(raw[:, 0] == 0)
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def test_write_png_stdlib_roundtrip(tmp_path):
+    """PNG output needs only zlib + struct: valid chunks and CRCs, and the
+    pixels are the sRGB-encoded image."""
+    from akari_tpu.core.image import write_png
+    from akari_tpu.core.spectrum import to_uint8_srgb
+
+    img = np.random.default_rng(0).uniform(0, 1.5, (7, 11, 3))
+    path = str(tmp_path / "a.png")
+    write_png(path, img.astype(np.float32))
+    np.testing.assert_array_equal(
+        _read_png_rgb(path), to_uint8_srgb(img.astype(np.float32))
+    )
+
+
+def test_write_image_by_extension(tmp_path):
+    """``.npy`` keeps linear float radiance, ``.hdr`` round-trips through
+    RGBE, anything else is a PNG."""
+    from akari_tpu.core.image import read_image, write_image
+
+    img = np.random.default_rng(1).uniform(0, 4, (5, 6, 3)).astype(np.float32)
+    write_image(str(tmp_path / "a.npy"), img)
+    np.testing.assert_array_equal(np.load(tmp_path / "a.npy"), img)
+    write_image(str(tmp_path / "a.hdr"), img)
+    np.testing.assert_allclose(read_image(str(tmp_path / "a.hdr")), img,
+                               rtol=2e-2, atol=1e-2)
+    write_image(str(tmp_path / "a.png"), img)
+    assert _read_png_rgb(str(tmp_path / "a.png")).shape == (5, 6, 3)

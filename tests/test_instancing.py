@@ -188,10 +188,9 @@ def test_instanced_render_matches_flat(pair):
 
 
 def test_instanced_pallas_flatten_matches_bvh(pair):
-    """Instanced scenes on the Pallas path: compile flattens instances to
-    world space (scene/nodes.py FLATTEN_MAX_TRIS) so the ray-stream kernels
-    serve them; hits and renders must agree with the two-level TLAS/BLAS
-    traversal of the same world geometry."""
+    """Instanced scenes on the dense Pallas kernel (interpret mode): the
+    compile flattens instances to world space; hits and renders must
+    agree with the two-level TLAS/BLAS traversal of the same geometry."""
     import jax.numpy as jnp
 
     import akari_tpu.ops.pallas_intersect as pi
@@ -312,51 +311,44 @@ export scene = Scene {
     assert sc.tri_v0.shape[0] == 1 and sc.n_tris == 2
 
 
-def test_instanced_pallas_blas_matches_bvh(pair, monkeypatch):
-    """Instanced scenes BEYOND the flatten budget take the per-prototype
-    Pallas BLAS (run_instanced two-level kernel): hits (virtual prim ids,
-    t, occlusion) and renders must match the XLA TLAS/BLAS traversal of
-    the SAME two-level scene (VERDICT r3 missing #4)."""
+def test_two_level_walk_matches_flat_on_larger_scene():
+    """The two-level XLA walk (the GPU route for instanced scenes above
+    the dense threshold) on 40 rotated, scaled instances of a 200-triangle
+    prototype: hits, distances and occlusion match brute force over the
+    same geometry flattened to world space."""
     import jax.numpy as jnp
 
-    import akari_tpu.scene.nodes as nodes_mod
-    import akari_tpu.ops.pallas_intersect as pi
-    from akari_tpu.integrators.path import PathConfig, render
     from akari_tpu.ops.intersect import intersect, occlude
 
-    sc_i, _ = pair
-    # force the beyond-flatten route and a non-CPU-style resolve
-    monkeypatch.setattr(nodes_mod, "FLATTEN_MAX_TRIS", 1)
-    instanced, _ = _scene_pair()
-    sc_p = compile_scene(instanced, intersector="pallas")
-    assert sc_p.instances is not None          # stayed two-level
-    assert sc_p.intersector == "pallas"
-    assert sc_p.inst_pallas_f32 is not None
-
-    o, d = _rays(300, seed=9)
+    r = np.random.default_rng(5)
+    base = r.uniform(-1, 1, size=(200, 1, 3))
+    tris = (base + r.normal(scale=0.2, size=(200, 3, 3))).astype(np.float32)
+    proto = Mesh(vertices=tris.reshape(-1, 3),
+                 indices=np.arange(600).reshape(-1, 3),
+                 materials=[DiffuseMaterial()])
+    xforms = [
+        _xf(tuple(r.uniform(-6, 6, 3)), scale=float(r.uniform(0.4, 1.2)),
+            rot_y=float(r.uniform(0, 6.28)))
+        for _ in range(40)
+    ]
+    sc_i = compile_scene([Instance(proto, M) for M in xforms])
+    sc_f = compile_scene([_baked(proto, M) for M in xforms],
+                         intersector="brute")
+    assert sc_i.instances is not None and sc_i.instances.n_instances == 40
+    assert sc_i.tri_v0.shape[0] < np.asarray(sc_f.tri_v0).shape[0]
+    o = r.uniform(-7, 7, size=(512, 3)).astype(np.float32)
+    d = r.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o, d = jnp.asarray(o), jnp.asarray(d)
-    old = pi.INTERPRET
-    pi.INTERPRET = True
-    try:
-        hp = intersect(sc_p, o, d)
-        occ_p = occlude(sc_p, o, d, 0.0, jnp.full((300,), 3.0, jnp.float32))
-        cam = make_camera(xform.translate((0.0, 2.0, 8.0)), 30.0, 12, 12)
-        cfg = PathConfig(spp=8, max_depth=3, ray_clamp=40.0)
-        img_p = np.asarray(render(sc_p, cam, cfg, seed=0))
-    finally:
-        pi.INTERPRET = old
-    hi = intersect(sc_i, o, d)
-    occ_i = occlude(sc_i, o, d, 0.0, jnp.full((300,), 3.0, jnp.float32))
-    np.testing.assert_array_equal(np.asarray(hp.valid), np.asarray(hi.valid))
-    np.testing.assert_array_equal(np.asarray(occ_p), np.asarray(occ_i))
-    ok = np.asarray(hi.valid)
-    # identical VIRTUAL prim ids (both paths share the id encoding)
-    np.testing.assert_array_equal(
-        np.asarray(hp.prim)[ok], np.asarray(hi.prim)[ok]
-    )
+    hi, hf = intersect(sc_i, o, d), intersect(sc_f, o, d)
+    vi, vf = np.asarray(hi.valid), np.asarray(hf.valid)
+    np.testing.assert_array_equal(vi, vf)
+    assert vi.sum() > 50
     np.testing.assert_allclose(
-        np.asarray(hp.t)[ok], np.asarray(hi.t)[ok], rtol=1e-4, atol=1e-4
+        np.asarray(hi.t)[vi], np.asarray(hf.t)[vf], rtol=1e-4, atol=1e-4
     )
-    img_i = np.asarray(render(sc_i, cam, cfg, seed=0))
-    rel = np.abs(img_p - img_i).mean() / max(float(img_i.mean()), 1e-6)
-    assert rel < 0.1, rel
+    t_max = jnp.full((512,), 2.0, jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(occlude(sc_i, o, d, 0.0, t_max)),
+        np.asarray(occlude(sc_f, o, d, 0.0, t_max)),
+    )

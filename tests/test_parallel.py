@@ -28,7 +28,7 @@ def test_eight_devices_available():
 
 
 def test_sharded_render_smoke_fast_tier(setup):
-    """FAST-tier shard_map coverage (VERDICT r4 weak #5): a seconds-scale
+    """FAST-tier shard_map coverage: a seconds-scale
     2-device sharded render must equal the single-device render. The
     heavier 8-way + gradient variants stay in the slow tier."""
     scene, cam, cfg = setup

@@ -1,4 +1,4 @@
-"""End-to-end render tests: JAX (TPU path) vs NumPy oracle on matched seeds,
+"""End-to-end render tests: JAX (device path) vs NumPy oracle on matched seeds,
 BVH vs brute-force equivalence, and basic physical sanity (white furnace).
 
 Comparison policy. Per-sample radiance from the *same program shape*
